@@ -1,8 +1,8 @@
 """Energy audit: high-precision image-mean comparison vs the reference.
 
-Round-3 verdict: pooling PARITY.md's 24 stochastic mean-z values gives
-pooled z ~ -3.6 — our images are consistently ~0.05-0.15% darker than the
-reference. This harness hunts that deficit:
+An earlier parity table pooled PARITY.md's 24 stochastic mean-z values to
+z ~ -3.6 — our images read ~0.05-0.15% darker than the reference. This
+harness hunts such a deficit (PARITY.md's energy audit has the result):
 
 * ours: one long run per algorithm (iterations are i.i.d. samples, and
   ``iteration`` is a traced arg, so any count costs zero extra compiles);
@@ -61,7 +61,7 @@ def run_ours(scene_id, alg, iters, res, block, seed, max_path_length=10):
     # encode/decode as the reference HDRs. The +0.5-quantum decode is
     # unbiased only for noisy pixels; near-constant bright pixels (a
     # directly-viewed light panel) decode up to +0.12% high, so raw-vs-
-    # decoded comparisons manufacture a fake deficit (the round-3 verdict's
+    # decoded comparisons manufacture a fake deficit (the earlier table's
     # pooled -3.6 sigma). Compare mean_rgbe against reference HDR means.
     import tempfile
     with tempfile.NamedTemporaryFile(suffix=".hdr") as tf:

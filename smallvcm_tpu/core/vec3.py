@@ -1,4 +1,4 @@
-"""Structure-of-arrays 3-vectors: the TPU-native vector layout.
+"""Structure-of-arrays 3-vectors: the renderer's vector layout.
 
 A batch of N vectors stored as ``[N, 3]`` puts the vector axis in the VPU's
 128-lane minor dimension — 3/128 lane utilization, measured ~50x slower than

@@ -55,8 +55,8 @@ def add_color_at_pix(fb, pix, color):
     (floor(x + jitter) == x for jitter in [0, 1)), and every driver hands
     paths a CONTIGUOUS ascending pixel-id range (full-frame arange, or a
     shard_map block of it — parallel/sharding.py::_global_pix), so the
-    per-path add reduces to a dynamic-slice add at pix[0]: ~free on a
-    v5e where the equivalent 262k-row scatter-add costs ~1.8 ms/channel.
+    per-path add reduces to a dynamic-slice add at pix[0] instead of a
+    scatter-add over every path.
     """
     from ..core.vec3 import V3
 

@@ -1,7 +1,7 @@
 """ctypes loader for the native C++ image codec (native/codec.cpp).
 
 The reference's output layer is native C++ (framebuffer.hxx:106-251); this
-is the TPU build's equivalent host-side runtime component. The shared
+is this build's equivalent host-side runtime component. The shared
 library is built on first use with the in-image g++ (one translation unit,
 <1 s) and cached next to the source; set SMALLVCM_TPU_NO_NATIVE=1 to force
 the pure-numpy fallback writers in io/framebuffer.py.

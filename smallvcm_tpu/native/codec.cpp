@@ -2,7 +2,7 @@
 //
 // The reference renderer's output layer is native C++ (framebuffer.hxx:
 // PPM :106-135, PFM :137-146, BMP 24bpp bottom-up + gamma :170-215,
-// Radiance RGBE HDR :219-251). This is the equivalent for the TPU build:
+// Radiance RGBE HDR :219-251). This is the equivalent for this build:
 // the device side stays XLA-compiled JAX; the host-side encode/IO runs
 // native through this small C library (loaded via ctypes — see
 // smallvcm_tpu/io/native_codec.py; the numpy writers in io/framebuffer.py

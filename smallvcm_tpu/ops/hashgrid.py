@@ -2,16 +2,12 @@
 
 The reference HashGrid (hashgrid.hxx:32-214) counting-sorts particle indices
 into per-cell CSR ranges and probes the 2x2x2 cell neighborhood nearest each
-query (hashgrid.hxx:124-138). This TPU re-design keeps those exact semantics
-but maps each step to what the hardware does well:
+query (hashgrid.hxx:124-138). This re-design keeps those exact semantics
+but maps each step to whole-array operations:
 
 * build: ONE stable multi-operand lax.sort keyed by cell hash (iota
-  tiebreak) sorts AND compacts in a single pass (~3 ms at 2.6M keys on a
-  v5e — scripts/profile_sort_variants.py). Round 5 replaced the
-  packed-radix argsort workaround (2 keys-only sorts + 2 full-width
-  gathers, ~80 ms at the same width; the round-2 "KV sort is pathological"
-  measurement does not reproduce on this runtime). CSR offsets come from
-  a scatter-add histogram + cumsum (no searchsorted).
+  tiebreak) sorts AND compacts in a single pass. CSR offsets come from a
+  scatter-add histogram + cumsum (no searchsorted).
 
 * query: instead of padding every probed cell to the max occupancy (gathers
   scale with 8*k_max), exact (query, photon) candidate pairs are expanded
@@ -19,7 +15,7 @@ but maps each step to what the hardware does well:
 
 The production merge pipeline lives in algorithms/vcm.py::merge_stage and
 uses :func:`sort_compact_planes` + :func:`_hash_cell` with planar payload
-gathers (TPU scattered gathers cost per ROW, not per element). :func:`build` / :func:`query_cell_ranges` / :func:`expand_pairs`
+gathers. :func:`build` / :func:`query_cell_ranges` / :func:`expand_pairs`
 below are the simple reference implementation of the same semantics, kept as
 the test oracle (tests/test_hashgrid.py checks both against brute force).
 
@@ -75,12 +71,8 @@ def sort_compact_planes(keys, planes, cap: int, fused: bool = False):
     second sort key), so the result is the stable counting sort the
     reference builds imperatively (hashgrid.hxx:67-88).
 
-    Round-5 replacement for ``stable_radix_argsort`` + permute-gathers:
-    one multi-operand ``lax.sort`` costs ~3 ms at 2.6M keys on a v5e
-    where the packed-radix path (2 keys-only sorts + 2 full-width
-    gathers) measured ~80 ms, and it subsumes the compaction gather
-    (scripts/profile_sort_variants.py — the round-2 "key-value sort is
-    pathological" result does not reproduce on this runtime).
+    One multi-operand ``lax.sort`` replaces ``stable_radix_argsort`` +
+    permute-gathers and subsumes the compaction gather.
 
     ``fused=True`` carries the payload planes through the sort itself
     ((2+P)-operand sort); ``fused=False`` (default, measured faster at
@@ -247,8 +239,8 @@ def compact_indices(valid, cap: int):
     Returns (idx [cap] int32 — flat source index per compacted slot, zero
     beyond the live range; count scalar; overflow scalar). Cost: one cumsum
     + one narrow scatter over [M] — the wide payload then moves with a
-    single per-row gather (TPU gathers cost per ROW, not per element; see
-    merge_stage's design notes in algorithms/vcm.py).
+    single per-row gather (see merge_stage's design notes in
+    algorithms/vcm.py).
     """
     m = valid.shape[0]
     pos = jnp.cumsum(valid.astype(jnp.int32)) - 1

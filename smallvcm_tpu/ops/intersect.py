@@ -3,47 +3,31 @@
 The reference does a per-ray virtual-dispatch linear scan over primitives
 (geometry.hxx:55-104) — no acceleration structure (README:209). Here every
 ray tests every primitive as dense [N_rays, N_prims] component-planar
-computations (full VPU lane width; see core/vec3.py) and closest hit is an
+computations (full vector width; see core/vec3.py) and closest hit is an
 argmin over the primitive axis. At SmallVCM's primitive counts (<= ~22
 triangles + 2 spheres) this is compute-trivial.
 
 Numerics follow geometry.hxx: two-sided triangle test via three
 cross-product sign agreements (:125-156) and the stable quadratic for
-spheres (:198-237) in f32 (TPUs have no fast f64; EPS_RAY=1e-3 offsets
-dominate residual error at Cornell scales). All guards against 0/0 and
-sqrt(0) keep masked lanes NaN-free in forward and backward passes.
+spheres (:198-237) in f32 (EPS_RAY=1e-3 offsets dominate residual error
+at Cornell scales). All guards against 0/0 and sqrt(0) keep masked lanes
+NaN-free in forward and backward passes.
 """
 
 from __future__ import annotations
 
-import contextlib
 from typing import NamedTuple
 
+import jax
 import jax.numpy as jnp
 
 from ..core.vec3 import V3, dot, normalize, v3_where
 from ..scene.scene import SceneData
 
 BIG_DIST = 1e36
-
-# Trace-time sweep backend: "xla" (dense [N,P] broadcasts, portable and
-# differentiable) or "pallas" (VMEM-resident Mosaic kernel, single-TPU;
-# ops/pallas_intersect.py). A *trace-time* switch: render_iteration_core
-# sets it (from its static trace_backend arg) around tracing, so it is
-# baked into each jitted program and participates in the jit cache key.
-_ACTIVE_BACKEND = "xla"
-
-
-@contextlib.contextmanager
-def active_backend(name: str):
-    """Select the sweep backend for intersect/occluded traced inside."""
-    global _ACTIVE_BACKEND
-    prev = _ACTIVE_BACKEND
-    _ACTIVE_BACKEND = name
-    try:
-        yield
-    finally:
-        _ACTIVE_BACKEND = prev
+# Name scope of every sweep: profiler traces attribute device kernels to
+# the ray sweep by it (scripts/trace_vcm.py).
+SWEEP_SCOPE = "sweep"
 
 
 class Hit(NamedTuple):
@@ -52,6 +36,8 @@ class Hit(NamedTuple):
     mat_id: jnp.ndarray    # [N] int32
     light_id: jnp.ndarray  # [N] int32, -1 when the hit is not emissive
     normal: V3             # V3 of [N]
+    prim: jnp.ndarray      # [N] int32 winning primitive (triangles first,
+                           # then spheres), -1 on a miss
 
 
 def _outer(a_n, b_t):
@@ -119,17 +105,10 @@ def _sphere_distances(scene: SceneData, org: V3, direction: V3, tmin):
     return jnp.where(t0_ok, t0, jnp.where(t1_ok, t1, BIG_DIST))
 
 
+@jax.named_scope(SWEEP_SCOPE)
 def intersect(scene: SceneData, org: V3, direction: V3, tmin=None) -> Hit:
     """Closest-hit over all primitives; org/direction V3 of [N]."""
     n = org.x.shape[0]
-    if _ACTIVE_BACKEND.startswith("pallas") and tmin is None:
-        from .pallas_intersect import intersect_pallas
-
-        best_t, best_p = intersect_pallas(
-            scene, org, direction,
-            interpret=(_ACTIVE_BACKEND == "pallas_interpret"),
-        )
-        return resolve_hit(scene, org, direction, best_t, best_p)
     if tmin is None:
         tmin = jnp.zeros((n,), org.x.dtype)
 
@@ -145,7 +124,7 @@ def intersect(scene: SceneData, org: V3, direction: V3, tmin=None) -> Hit:
 def resolve_hit(scene: SceneData, org: V3, direction: V3,
                 best_t, best) -> Hit:
     """Closest-hit attribute resolution (material/normal/light) from the
-    winning primitive index (tri-major, -1 or any index on miss — every
+    winning primitive index (tri-major; any index on miss — every
     attribute is masked by ``hit``)."""
     hit = best_t < BIG_DIST
 
@@ -169,9 +148,10 @@ def resolve_hit(scene: SceneData, org: V3, direction: V3,
     light_id = jnp.where(hit, scene.mat_to_light[mat_id], -1)
     mat_id = jnp.where(hit, mat_id, -1)
     return Hit(hit=hit, dist=best_t, mat_id=mat_id, light_id=light_id,
-               normal=normal)
+               normal=normal, prim=jnp.where(hit, best, -1).astype(jnp.int32))
 
 
+@jax.named_scope(SWEEP_SCOPE)
 def occluded(scene: SceneData, point: V3, direction: V3, dist) -> jnp.ndarray:
     """Shadow-ray test replicating scene.hxx:72-85 exactly: origin offset by
     EPS_RAY along the direction, max distance shortened by 2*EPS_RAY."""
@@ -180,15 +160,6 @@ def occluded(scene: SceneData, point: V3, direction: V3, dist) -> jnp.ndarray:
     org = point + direction * EPS_RAY
     tmin = jnp.zeros(point.x.shape, point.x.dtype)
     tmax = dist - 2.0 * EPS_RAY
-
-    if _ACTIVE_BACKEND.startswith("pallas"):
-        from .pallas_intersect import intersect_pallas
-
-        best_t, _ = intersect_pallas(
-            scene, org, direction,
-            interpret=(_ACTIVE_BACKEND == "pallas_interpret"),
-        )
-        return best_t < tmax
 
     tri_t = _tri_distances(scene, org, direction, tmin)
     sph_t = _sphere_distances(scene, org, direction, tmin)

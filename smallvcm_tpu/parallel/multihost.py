@@ -2,9 +2,9 @@
 
 The reference is single-process only. Here the same shard_map program from
 sharding.py runs unchanged over a multi-host global mesh: every host runs
-this module, paths shard over all chips globally, the light-vertex
-all-gather rides ICI within a slice (and DCN across slices), and the
-framebuffer psum produces the full image on every host.
+this module, paths shard over all devices globally, the light-vertex
+all-gather crosses the device interconnect (and the network across
+hosts), and the framebuffer psum produces the full image on every host.
 
 Failure model (SURVEY.md section 5): fail-fast — inter-iteration state is
 only (framebuffer, iteration, seed), so any failure is recovered by

@@ -1,6 +1,6 @@
 """Scene container: SoA geometry/material/light arrays + Cornell builder.
 
-TPU-first re-design of ``/root/reference/src/scene.hxx`` /
+Array-first re-design of the reference's ``scene.hxx`` /
 ``materials.hxx`` / ``lights.hxx`` data: instead of virtual-dispatch object
 lists, the scene is a pytree of fixed-shape arrays so a single jitted
 wavefront pass can intersect/shade every path in parallel. Light types are

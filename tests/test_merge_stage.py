@@ -149,3 +149,68 @@ def test_merge_stage_overflow_reported():
     # The per-chunk cap floors at 1024 rows; anything beyond must be counted.
     assert int(stats[0]) > 1024
     assert int(overflow) >= int(stats[0]) - 1024
+
+
+def _merge_inputs(seed, span_radii, res=8):
+    n = res * res
+    scene = load_cornell_box((res, res), SCENE_CONFIGS[1])
+    misc = vcm.compute_misc(scene, 0, n, 0.05, 0.75, True, True)
+    kq, kp = jax.random.split(jax.random.PRNGKey(seed))
+    span = float(misc.radius) * span_radii
+    queries = _random_vertices(kq, 4, n, 0.0, span, 9)
+    light_verts = _random_vertices(kp, 5, n, 0.0, span, 9)
+    return scene, misc, queries, light_verts, n
+
+
+@pytest.mark.parametrize("ppm", [False, True])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_chunked_merge_matches_dense(ppm, seed):
+    """The chunked query loop (merge_chunks > 1, per-chunk pair caps with
+    slack for an uneven split) equals the dense all-pairs oracle."""
+    scene, misc, queries, light_verts, n = _merge_inputs(seed + 10, 30.0)
+    got, overflow, stats = vcm.merge_stage(
+        scene, misc, queries, light_verts, num_cells=2 * n,
+        pair_cap=64 * n, ppm=ppm, max_path_length=7, min_path_length=0,
+        photon_cap=5 * n, query_cap=4 * n, n_paths=n, merge_chunks=4,
+    )
+    assert int(overflow) == 0
+    assert int(stats[0]) > 0
+    want = _dense_merge(scene, misc, queries, light_verts, ppm, 7, 0, n)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(
+            np.asarray(g), np.asarray(w), rtol=2e-5, atol=1e-7
+        )
+
+
+def test_min_path_length_window_matches_dense():
+    """The path-length window (vertexcm.hxx:132-135) with a lower bound."""
+    scene, misc, queries, light_verts, n = _merge_inputs(5, 30.0)
+    got, overflow, _ = vcm.merge_stage(
+        scene, misc, queries, light_verts, num_cells=2 * n,
+        pair_cap=64 * n, ppm=False, max_path_length=8, min_path_length=5,
+        photon_cap=5 * n, query_cap=4 * n, n_paths=n,
+    )
+    assert int(overflow) == 0
+    want = _dense_merge(scene, misc, queries, light_verts, False, 8, 5, n)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(
+            np.asarray(g), np.asarray(w), rtol=2e-5, atol=1e-7
+        )
+
+
+@pytest.mark.parametrize("side", ["photon", "query"])
+def test_merge_stage_compaction_overflow_reported(side):
+    """A photon or query compaction cap below the live count is reported
+    as overflow (so the driver grows it and re-renders), with the live
+    counts in stats."""
+    scene, misc, queries, light_verts, n = _merge_inputs(2, 4.0)
+    caps = dict(photon_cap=5 * n, query_cap=4 * n)
+    caps[f"{side}_cap"] = 8
+    _, overflow, stats = vcm.merge_stage(
+        scene, misc, queries, light_verts, num_cells=2 * n,
+        pair_cap=64 * n, ppm=False, max_path_length=9, min_path_length=0,
+        n_paths=n, **caps,
+    )
+    live = int(stats[1] if side == "photon" else stats[2])
+    assert live > 8
+    assert int(overflow) >= live - 8

@@ -1,9 +1,8 @@
 """--report machinery: completeness, resume, incremental index.html.
 
 Each combination renders via a CLI subprocess (report.py); at 32^2 with
--i 1 the whole 28-combo matrix is cheap enough for CI. The fault-retry
-path itself is unit-covered by the supervisor tests (test_isolate.py);
-here we check the report state machine around it.
+-i 1 the whole 28-combo matrix is cheap enough for CI. Here we check the
+report state machine around it.
 """
 
 import json
